@@ -1,7 +1,7 @@
 """Drop-in compatibility shim: ``import corrla_rs`` works unchanged.
 
 Users of the reference pyo3 module (reference lib_math_utils_py.rs:17-176)
-can keep their imports; every name resolves to the TPU-native
+can keep their imports; every name resolves to the JAX
 implementation in corrla_rs_tpu.
 """
 from corrla_rs_tpu import (  # noqa: F401

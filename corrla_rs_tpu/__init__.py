@@ -1,11 +1,10 @@
-"""corrla_rs_tpu — TPU-native (JAX/XLA/Pallas) rebuild of wgurecky/CORRLA_RS.
+"""corrla_rs_tpu — JAX/XLA rebuild of wgurecky/CORRLA_RS for the GPU.
 
 A library for correlation analysis, randomized linear algebra, reduced-order
 modeling (PCA / POD / DMDc), active-subspace identification, RBF
 interpolation, constrained sampling, and DEMC/DREAM MCMC — designed
-TPU-first: every numeric path is jit-compiled XLA, hot kernels have Pallas
-implementations, and tall-matrix / many-chain workloads shard over a
-``jax.sharding.Mesh``.
+for an accelerator: every numeric path is jit-compiled XLA, and
+tall-matrix / many-chain workloads shard over a ``jax.sharding.Mesh``.
 
 The public surface mirrors the reference pyo3 module ``corrla_rs``
 (reference: src/lib_math_utils_py.rs:17-176) so a user of the reference can

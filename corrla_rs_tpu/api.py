@@ -98,13 +98,12 @@ def cs_mcmc_dirichlet_sample(bounds, n_samples: int, n_seed_samples: int,
     DEMC -> (interleaved samples, acceptance ratio). Seeds form the chains
     (one chain per seed), so n_seed_samples >= 3.
 
-    Small populations (n_seed_samples below the sampler routing threshold)
+    Small populations (n_seed_samples below ``smallpath.SAMPLER_CHAINS``)
     with an integer seed run the compiled C++ host pipeline
     (native.demc_dirichlet_host): at reference scale (12 chains x 3000
-    samples) per-generation dispatch overhead dominates any backend, and
-    the host sampler matches the reference's own compiled-loop wall
-    (measured ~31 ms vs 0.55 s routed-JAX on the round-3 host). Same
-    statistical contract; draws differ from the JAX path (different RNG).
+    samples) per-generation kernel launches dominate on any device, and
+    the host loop takes 12 ms on the H100's host. Same statistical
+    contract; draws differ from the JAX path (different RNG).
     """
     import numpy as np
 
@@ -122,15 +121,11 @@ def cs_mcmc_dirichlet_sample(bounds, n_samples: int, n_seed_samples: int,
     # cost an accelerator dispatch per call
     bounds = np.asarray(bounds, dtype=np.float64)
     from corrla_rs_tpu import native
-    from corrla_rs_tpu.utils.smallpath import (
-        SAMPLER_CHAINS,
-        small_path_threshold,
-    )
+    from corrla_rs_tpu.utils.smallpath import SAMPLER_CHAINS
 
     if (
         isinstance(seed, (int, np.integer))
         and int(n_seed_samples) < SAMPLER_CHAINS
-        and small_path_threshold() > 0
         and native.available()
     ):
         seeds = native.cs_dirichlet_rejection_host(

@@ -4,7 +4,7 @@ Ref: P. Constantine et al., "Active subspace methods in theory and
 practice" (arxiv 1304.2070); Constantine & Diaz, "Global sensitivity
 metrics from active subspaces" (arxiv 1510.04361).
 
-Parity with reference active_subspaces.rs:23-277 — with the TPU-first
+Parity with reference active_subspaces.rs:23-277 — with the accelerator
 replacements from SURVEY.md §2 row 6:
 
 - The reference's KdTree neighbor search (active_subspaces.rs:71-77,90-112)
@@ -14,7 +14,7 @@ replacements from SURVEY.md §2 row 6:
   vmapped local least-squares over all N samples.
 - The ``fit`` path's eigendecomposition (active_subspaces.rs:252-277) uses
   ``jnp.linalg.eigh`` — C = G G^T / N is symmetric PSD, so the symmetric
-  solver is native on TPU (the reference calls a complex general EVD and
+  solver applies (the reference calls a complex general EVD and
   discards the zero imaginary parts, active_subspaces.rs:260-267).
 - The ``fit_svd`` path (active_subspaces.rs:233-250) uses the shared RSVD
   core with the reference defaults (8 iters / 10 oversamples).
@@ -255,7 +255,7 @@ class ActiveSsRsvd:
         """EVD path: eigh of C = G G^T / N, sorted descending.
 
         Parity with active_subspaces.rs:252-277 (C is symmetric PSD so the
-        TPU-native symmetric solver replaces the reference's complex
+        native symmetric solver replaces the reference's complex
         general EVD whose imaginary parts are zero).
 
         ``mesh=``: shard the N sample/query axis across chips — per-shard

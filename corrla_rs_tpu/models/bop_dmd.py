@@ -7,7 +7,7 @@ and mode shapes wobble. Bagging fits B exact-DMD models on random
 snapshot-pair subsets and reads the spread: eigenvalue scatter, mode
 bands, and forecast intervals.
 
-TPU-first shape: all B subset fits run as ONE jit+vmap dispatch (the
+Accelerator shape: all B subset fits run as ONE jit+vmap dispatch (the
 same trick as models/dmd.dmdc_fit_ensemble, enabled by the on-device
 Francis-QR eigensolver): per member — subset gather, randomized SVD of
 X1_sub, reduced operator, eig_device, exact modes — all real algebra

@@ -21,11 +21,11 @@ optionally a constant), prepended to whatever the user supplies —
 this guarantees x = C psi(x) with C a row selector, which is what makes
 mode extraction and rollouts exact rather than approximate.
 
-TPU-first shape: the fit is ONE jitted kernel — two (N, N) MXU Grams at
+Accelerator shape: the fit is ONE jitted kernel — two (N, N) Gram matmuls at
 HIGHEST precision plus one symmetric solve (no pinv); dictionaries are
 jittable column maps evaluated on device; rollouts are a real-valued
 ``lax.scan`` over the lifted state (the complex spectral algebra stays
-on host numpy like models/dmd.py — this TPU rejects complex dtypes).
+on host numpy like models/dmd.py).
 Spectrum of the N x N K uses the host eigensolver (ops/eig.eig_host).
 """
 from __future__ import annotations

@@ -10,9 +10,9 @@ experiment or a black-box solver actually provides. The realization is
 balanced: its Hankel singular values rank state directions by
 controllability*observability, giving the principled truncation order.
 
-TPU-first shape: the block-Hankel matrices are ONE gather each
+Accelerator shape: the block-Hankel matrices are ONE gather each
 (an (mo, mc) index grid over the Markov stack — no Python loops), the
-heavy step is a randomized SVD of H0 ((mo q), (mc p)) on the MXU, and
+heavy step is a randomized SVD of H0 ((mo q), (mc p)) as dense matmuls, and
 the realization itself is three small matmuls. Rollouts are lax.scan.
 """
 from __future__ import annotations
@@ -205,7 +205,7 @@ def _okid_lstsq(u, y, l, ridge):
     """Observer-Markov least squares: regressor rows for k = l..N-1 are
     [u_k; v_{k-1}; ...; v_{k-l}] with v_j = [u_j; y_j] — built by one
     gather over the stacked (p+q, N) record; the normal equations are
-    two MXU matmuls + one (small) solve."""
+    two dense matmuls + one (small) solve."""
     p, n = u.shape
     q = y.shape[0]
     uy = jnp.concatenate([u, y], axis=0)              # (p+q, N)

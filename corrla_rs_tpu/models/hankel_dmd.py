@@ -9,10 +9,10 @@ snapshots into one column (a block-Hankel matrix) and the embedded
 system IS linear of full dynamic rank (Takens; the HAVOK/Hankel-DMD
 view of Brunton et al. 2017, Arbabi & Mezic 2017).
 
-TPU-first shape: the Hankel matrix is ONE gather (x[:, idx] with a
+Accelerator shape: the Hankel matrix is ONE gather (x[:, idx] with a
 (d, m_h) index grid) + transpose/reshape — no Python loop over delays —
 and everything downstream reuses the exact-DMD machinery (randomized
-SVD on the MXU, host or Francis-QR device eig, lax.scan rollouts).
+SVD as dense matmuls, host or Francis-QR device eig, lax.scan rollouts).
 ``HankelDmd`` subclasses :class:`~corrla_rs_tpu.models.dmd.DMD`, so
 solver='tls'/'fb' noise debiasing and eig_backend='device' compose
 with the embedding for free.

@@ -22,11 +22,11 @@ one-pass randomized Nystrom eigendecomposition (ops/nystrom.py) — the
 "randomized kernelized DMD" route (PAPERS.md: arxiv 2601.22867) for
 large snapshot counts.
 
-TPU-first shape: both Grams are one MXU matmul each (pairwise distances
+Accelerator shape: both Grams are one dense matmul each (pairwise distances
 via the expanded-square form — no (m, m, n) intermediates); the
 truncation is an on-device eigh (or Nystrom sketch); only the tiny
 (r, r) complex spectral algebra goes to host numpy, same split as
-models/dmd.py (this TPU rejects complex dtypes on device).
+models/dmd.py.
 """
 from __future__ import annotations
 

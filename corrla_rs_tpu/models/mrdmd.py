@@ -10,11 +10,10 @@ recurse. The result is a time-frequency decomposition: slow global
 structure at level 0, progressively faster / more localized events at
 deeper levels.
 
-TPU-first shape: each node's heavy work is the library's randomized
-SVD + reduced-operator fit (MXU matmuls via :class:`DMD`); the spectral
+Accelerator shape: each node's heavy work is the library's randomized
+SVD + reduced-operator fit (dense matmuls via :class:`DMD`); the spectral
 bookkeeping (r x m coefficient tables, slow-mode masks) is tiny host
-complex algebra (this TPU has no complex dtypes on device — the same
-split models/dmd.py uses). Window reconstruction/subtraction returns to
+complex algebra (the same split models/dmd.py uses). Window reconstruction/subtraction returns to
 the device as two real (n_x, r)x(r, m) matmuls. The recursion tree is
 static Python (at most 2^levels nodes), so every distinct window shape
 compiles once.

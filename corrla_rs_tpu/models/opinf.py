@@ -17,7 +17,7 @@ high-fidelity operators.
 
 Fit = one regularized least squares over the data matrix
 D = [1, Xhat^T, kron2(Xhat)^T, U^T]: the normal equations are formed
-once on the MXU and solved per operator-block ridge (Tikhonov with
+once as dense matmuls and solved per operator-block ridge (Tikhonov with
 separate penalties for linear and quadratic blocks, as in McQuarrie-
 Huang-Willcox 2021 — the quadratic block needs heavier damping under
 noise). POD basis via the library's randomized SVD; rollouts are RK4

@@ -14,12 +14,12 @@ order in the noise, accepts arbitrary (unequal) sample times, and
 forecasts at arbitrary real times. BOP-DMD (Sashidhar & Kutz 2022) bags
 it over random time subsets for eigenvalue/mode/forecast uncertainty.
 
-TPU-first shape: the only large-dimension work is the rank-r POD
+Accelerator shape: the only large-dimension work is the rank-r POD
 projection (randomized SVD of the (n_x, m) snapshot matrix + one
-(r, n_x)x(n_x, m) matmul — MXU) and the final mode lift U @ B^T. The
+(r, n_x)x(n_x, m) matmul) and the final mode lift U @ B^T. The
 variable-projection Levenberg-Marquardt then runs on the PROJECTED
-(m, r) complex system on host (this TPU has no complex dtypes on
-device — the same host/device split as models/dmd.py), costing
+(m, r) complex system on host (the same host/device split as
+models/dmd.py), costing
 O(maxiter * (m r^2 + r^3)) — microseconds next to the projection. For
 BOP-DMD the projection is shared across all members, so B bagged fits
 add only B host solves on (m_sub, r) matrices.

@@ -26,8 +26,8 @@ Families and their closed forms (X1, X2 the snapshot pair matrices):
                    two real matmuls (cos/sin), the rowwise complex
                    ratio is four real reductions.
 
-TPU-first shape: 'orthogonal'/'symmetric'/'skewsymmetric' constrain the
-rank-r POD-REDUCED operator (randomized SVD projection on the MXU, the
+Accelerator shape: 'orthogonal'/'symmetric'/'skewsymmetric' constrain the
+rank-r POD-REDUCED operator (randomized SVD projection as dense matmuls, the
 closed form on the r x r core, host eig of the tiny constrained core —
 the same split as models/dmd.py); 'diagonal'/'circulant' act on the raw
 state where the structure lives, as batched elementwise reductions /

@@ -6,7 +6,7 @@ per-snapshot weights via pinv(modes) (pod_rom.rs:61-75), linear-kernel RBF
 interpolation of each mode weight over the exogenous variable t
 (pod_rom.rs:78-95), prediction y(t) = modes @ w(t) (pod_rom.rs:107-118).
 
-TPU-first deltas:
+Deltas from the reference:
 - the reference's per-snapshot weight loop is one batched matmul;
 - the reference fits one RbfInterp per mode (pod_rom.rs:84-93) over the
   *same* support points — here all modes share a single saddle-system solve

@@ -12,7 +12,7 @@ right-hand side exactly from trajectory data. With a control input the
 library is built over (x, u) — SINDYc (Brunton et al. 2016b) — the
 nonlinear sibling of the reference's DMDc.
 
-TPU-first shape:
+Accelerator shape:
 - the feature library is ONE batched power-product: all monomial
   exponent tuples are enumerated at trace time and evaluated as
   ``prod(x[:, None, :] ** E[None])`` — a single fused elementwise

@@ -8,11 +8,11 @@ orthogonal at every frequency, optimally energy-ranked there, and —
 unlike DMD modes — statistically converged for stationary turbulent
 data (it is exactly the frequency-domain Karhunen-Loeve expansion).
 
-TPU-first shape (this device has no complex dtypes and no fast native
-FFT path — but it has an MXU):
+Accelerator shape (complex algebra kept as real pairs, the DFT as dense
+matmuls):
 - Welch segmentation is ONE gather: (n_blocks, n_x, n_fft).
 - The windowed real DFT is TWO real matmuls against precomputed
-  cos/sin bases, (B n_x, n_fft) x (n_fft, n_freq) — pure MXU work,
+  cos/sin bases, (B n_x, n_fft) x (n_fft, n_freq) — pure matmul work,
   no complex arithmetic anywhere on device.
 - Per-frequency SPOD uses the method of snapshots: the B x B Hermitian
   cross-spectral Grams M = Q^H Q split into real/imag parts by matmuls

@@ -180,9 +180,8 @@ def demc_dirichlet_host(bounds, seeds, n_steps: int, gamma: float = 0.8,
     The reference-class competitor for ``cs_mcmc_dirichlet_sample``
     (space_samplers.rs:252-418 + lib_math_utils_py.rs:107-168 semantics:
     parallel-update DEMC generations, simplex-renormalizing fixup,
-    Dirichlet+box-prior Metropolis). Exists to pin the BASELINE.md
-    small-MCMC row: the routed JAX path is measured against this on the
-    same host (VERDICT r3 item 7).
+    Dirichlet+box-prior Metropolis). ``api.cs_mcmc_dirichlet_sample`` runs
+    it for populations below ``smallpath.SAMPLER_CHAINS``.
 
     bounds: (ndim, 2); seeds: (n_chains, ndim) initial chain heads.
     Returns (samples (n_steps * n_chains, ndim) round-robin interleaved

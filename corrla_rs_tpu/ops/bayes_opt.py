@@ -11,7 +11,7 @@ minimization (Jones-Schonlau-Welch EGO / Snoek 2012):
 - acquisitions in closed form for minimization: expected improvement
   (EI), lower confidence bound (LCB), probability of improvement (PI);
 - candidate search: scrambled-Sobol batch scored in ONE vmapped GP
-  predict (TPU-friendly: thousands of candidates per dispatch), then a
+  predict (accelerator-friendly: thousands of candidates per dispatch), then a
   few projected-gradient ascent steps on the acquisition from the best
   candidates — ``jax.grad`` flows through the GP posterior for free;
 - ask/tell interface plus a ``minimize`` driver.

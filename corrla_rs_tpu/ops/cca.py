@@ -5,7 +5,7 @@ Pearson matrix of ONE block of variables; CCA is the natural completion
 for two blocks: the pairs of directions (a_i, b_i) maximizing
 corr(X a_i, Y b_i), mutually uncorrelated across pairs.
 
-TPU-first shape: one pass of (n, p/q) Gram matmuls on the MXU, then all
+Accelerator shape: one pass of (n, p/q) Gram matmuls as dense matmuls, then all
 small dense algebra — Cholesky whitening of Sxx/Syy (ridge-regularized)
 and one SVD of the (p, q) whitened cross-covariance. Everything jits;
 no per-component deflation loop (the SVD gives all pairs at once).

@@ -7,8 +7,8 @@ solves and Laplacian-like operators can be solved matrix-free at scales
 where O(n^3)/O(n^2) storage is off the table — and pairs with
 ops/slq.py (solves + logdet = full GP inference via matvecs only).
 
-TPU-first shape: every RHS column advances in lockstep — one batched
-(n, k) operator application per iteration (MXU matmul for explicit
+Accelerator shape: every RHS column advances in lockstep — one batched
+(n, k) operator application per iteration (dense matmul for explicit
 matrices), scalars per column via reductions, the loop a
 ``lax.fori_loop`` with a convergence MASK instead of early exit
 (static shapes; converged columns freeze, so extra iterations are

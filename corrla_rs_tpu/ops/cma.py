@@ -10,7 +10,7 @@ stall. This is the standard (mu/mu_w, lambda) algorithm: rank-mu +
 rank-one covariance updates, cumulative step-size adaptation (CSA),
 log-decreasing recombination weights.
 
-TPU-first shape: a generation is ONE batched objective evaluation of
+Accelerator shape: a generation is ONE batched objective evaluation of
 the full population (vmap for jax objectives) plus small-matrix updates
 (one (d, d) eigh per generation for the sampling transform); the
 generation loop runs under ``lax.scan`` when the objective is

@@ -8,11 +8,11 @@ M ~= U V^T of rank r by minimizing the squared error on the OBSERVED
 entries plus ridge: the alternating updates are exact row-wise least
 squares, each sweep a pair of closed-form batched solves.
 
-TPU-first shape: the per-row normal equations for ALL rows are built
+Accelerator shape: the per-row normal equations for ALL rows are built
 in one einsum each — G (n_rows, r, r) = sum_j mask_ij v_j v_j^T and
 the right-hand sides in one masked matmul — then solved with one
 batched jnp.linalg.solve. No gather/scatter over the observed set, no
-sparse formats: the mask rides as a dense 0/1 matrix, which on an MXU
+sparse formats: the mask rides as a dense 0/1 matrix, which for dense matmuls
 is faster than indexing until the matrix itself no longer fits.
 Fixed-sweep lax.scan with an observed-entry RMSE history.
 """

@@ -7,7 +7,7 @@ T ~= sum_r lam_r a_r^(1) o ... o a_r^(d) — the UNIQUE (under Kruskal
 conditions) latent-factor model, which Tucker/TT are not: CP factors
 are interpretable axes (chemometrics, fluorescence, neural data).
 
-TPU-first shape: each ALS update solves all R columns of one factor at
+Accelerator shape: each ALS update solves all R columns of one factor at
 once from the matricized-tensor-times-Khatri-Rao product (MTTKRP). The
 MTTKRP is computed WITHOUT materializing the Khatri-Rao matrix: fold
 the factors in one at a time with batched matmuls/einsums; the
@@ -109,7 +109,7 @@ def cp_als(tensor, rank: int, n_sweeps: int = 50, key=0,
     MTTKRP contracts the sharded axis, so GSPMD inserts one psum of an
     (I_k, R) partial per update — the small R x R Hadamard-Gram solves
     replicate. Same psum-Gram contract as parallel/sharded_hosvd.py
-    (SURVEY §2.2; VERDICT r3 item 5).
+    (SURVEY §2.2).
 
     Returns (weights, factors, fits): ``weights`` (R,) positive scales
     (factors column-normalized, largest component first), ``factors``

@@ -8,7 +8,7 @@ with error bounded by ||(P^T U)^{-1}|| times the projection error
 (Chaturantabut & Sorensen 2010). Uses: sparse sensing, nonlinear-ROM
 hyper-reduction, optimal sensor placement for the PodI/DMDc models.
 
-TPU-first shape: the greedy loop is a ``lax.fori_loop`` whose step-j
+Accelerator shape: the greedy loop is a ``lax.fori_loop`` whose step-j
 solve runs on a PADDED r x r system (rows beyond j masked to identity —
 static shapes, one small solve per step), so the whole selection jits;
 reconstruction is two small matmuls.

@@ -15,8 +15,8 @@ randomized subspace sampling"):
   p_gamma1 (default 0.2, i.e. every ~5th generation)
 - (1+e) multiplicative and eps additive proposal noise
 
-TPU-first: all chains advance as one vmapped generation inside ``lax.scan``
-— this is the ">= 1M samples/sec" north-star kernel (BASELINE.json).
+Accelerator design: all chains advance as one vmapped generation inside
+``lax.scan`` — the ">= 1M samples/sec" north-star kernel.
 Optional Vrugt-style outlier-chain correction (``outlier_reset`` /
 DreamSampler(outlier_correct=True)) runs only inside the burn-in window;
 adaptation freezes after ``n_adapt`` generations so the stationary chain
@@ -71,10 +71,9 @@ class _GenRand(NamedTuple):
 def _draw_chunk(key, n_gens, n_chains, d, delta_max, b, b_star, dtype):
     """All randomness for ``n_gens`` generations in 9 batched draws.
 
-    The per-generation kernel-launch overhead of this runtime (~10-25 us
-    per op inside a scan step) made the ~25 PRNG ops of a draw-per-
-    generation design the dominant cost at small chain counts; drawing a
-    chunk at once amortizes them n_gens-fold.
+    Per-op kernel-launch overhead inside a scan step made the ~25 PRNG
+    ops of a draw-per-generation design the dominant cost at small chain
+    counts; drawing a chunk at once amortizes them n_gens-fold.
     """
     ks = jax.random.split(key, 9)
     g = (n_gens,)
@@ -95,12 +94,10 @@ def _draw_chunk(key, n_gens, n_chains, d, delta_max, b, b_star, dtype):
 def _cr_histogram(cr_ids, jds, n_cr, dtype):
     """Per-CR-bin (jump-distance sum, use count), scatter-free.
 
-    One-hot masked reductions instead of ``.at[cr_ids].add`` — vector-
-    index scatters serialize the scan body on the TPU scalar unit
-    (measured 17.7 -> 33.9 M samples/s at the 8192-chain bench shape
-    when the generation's three scatters became elementwise ops). Shared
-    by the single-chip and mesh-sharded generation bodies so the
-    same-answer property can't drift.
+    One-hot masked reductions instead of ``.at[cr_ids].add``: the
+    generation body holds no scatter, only elementwise ops and
+    reductions. Shared by the single-chip and mesh-sharded generation
+    bodies so the same-answer property can't drift.
     """
     onehot = (cr_ids[:, None] == jnp.arange(n_cr)[None, :]).astype(dtype)
     return jnp.sum(onehot * jds[:, None], axis=0), jnp.sum(onehot, axis=0)
@@ -132,10 +129,8 @@ def _dream_generation(state: DreamState, rand: _GenRand, ln_prob_fn,
     cr = (cr_ids.astype(dtype) + 1.0) / n_cr
     mask = rand.z < cr[:, None]
     # guarantee at least one updated dimension per chain. One-hot OR, not
-    # .at[...].set: a scatter inside the scan body serializes on the TPU
-    # scalar unit — swapping the three scatters in this generation for
-    # their elementwise equivalents measured 17.7 -> 33.9 M samples/s on
-    # the chip at the 8192-chain bench shape, bitwise-identical history.
+    # .at[...].set, keeps the scan body free of scatters; the history is
+    # bitwise identical either way.
     mask = mask | (jnp.arange(d)[None, :] == rand.force[:, None])
     d_eff = jnp.sum(mask.astype(dtype), axis=1)
 
@@ -204,15 +199,14 @@ def make_dream_state(init_heads, ln_prob_fn: Callable, n_cr: int = _CFG.n_cr,
 def _chunk_for(n_chains: int) -> int:
     """Generations per pre-drawn randomness chunk (DEMC + small-DREAM).
 
-    DREAM itself now schedules via ``_sched_for`` below (measured on the
-    scatter-free body); ``ops.samplers.demc_run`` still imports this.
+    DREAM itself schedules via ``_sched_for`` below;
+    ``ops.samplers.demc_run`` still imports this.
 
     Small populations are dominated by per-generation kernel-launch
-    overhead -> amortize with big chunks (measured at 512 chains:
-    2.1 M samples/s unchunked -> ~4 M/s at chunk 50). Large populations
-    are HBM-bound on the chunk tensors ((chunk, n, d) x 6) -> keep chunks
-    small (32k chains: chunk 5 beats chunk 20 by ~35%). Sweep recorded in
-    BASELINE.md round-2 notes.
+    overhead -> amortize with big chunks. Large populations move the
+    chunk tensors ((chunk, n, d) x 6) through device memory -> keep
+    chunks small. The values were tuned on an earlier accelerator and
+    are untuned on the H100; results do not depend on them.
     """
     return max(5, min(50, 25600 // max(n_chains, 1)))
 
@@ -220,14 +214,12 @@ def _chunk_for(n_chains: int) -> int:
 def _sched_for(n_chains: int) -> tuple[int, int]:
     """(chunk, unroll) schedule for the scatter-free generation body.
 
-    Measured on the chip (3 population sizes x 4 schedules, min-of-5
-    steady walls, BASELINE.md round-5 notes): mid-size populations are
-    scan-overhead-bound and favor chunk 10 / unroll 8 (35.0 vs 31.8 M
-    samples/s at 8192 chains); very large ones pay HBM for the
-    (chunk, n, d) randomness tensors and want the smallest chunk
-    (32768 chains: chunk 5 / unroll 4 = 35.7 M/s, chunk 10 / unroll 8 =
-    32.4); small ones amortize the PRNG draws with big chunks and LOSE
-    from deep unrolling (512 chains: unroll 8 is ~12% slower than 4).
+    Mid-size populations are scan-overhead-bound (chunk 10 / unroll 8);
+    very large ones pay memory traffic for the (chunk, n, d) randomness
+    tensors and take the smallest chunk; small ones amortize the PRNG
+    draws with big chunks and a shallow unroll. The table was tuned on an
+    earlier accelerator and is untuned on the H100. Histories are bitwise
+    identical across schedules, so only speed depends on it.
     """
     if n_chains <= 2048:
         return _chunk_for(n_chains), 4

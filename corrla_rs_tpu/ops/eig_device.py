@@ -1,11 +1,9 @@
 """On-device nonsymmetric eigendecomposition (real Schur QR algorithm).
 
-TPU/XLA has no nonsymmetric ``eig`` lowering and this environment's TPU
-runtime rejects both host callbacks and complex device dtypes, so the
-reference's complex eigensolve (dmd_rom.rs:112-125, faer
-``Eigendecomposition<c64>``) has so far run on host LAPACK between jitted
-stages (ops/eig.eig_host). This module removes that limitation with a
-pure-JAX implementation that is **jit-safe, vmap-able, and complex-free**
+The reference's complex eigensolve (dmd_rom.rs:112-125, faer
+``Eigendecomposition<c64>``) runs on host LAPACK between jitted stages
+(ops/eig.eig_host) or through a host callback. This module removes that
+host step with a pure-JAX implementation that is **jit-safe, vmap-able, and complex-free**
 (eigenvalues and eigenvectors are returned as separate real/imaginary
 parts, so it runs on backends with no complex dtype support at all):
 
@@ -186,10 +184,10 @@ def schur(a: jnp.ndarray, max_iters: int | None = None):
         steps masked to identity reflectors (beta = 0) instead of dynamic
         [lo, p) bounds: under vmap, dynamic bounds make k differ per
         batch element, turning every 3-row dynamic_slice into a batched
-        gather/scatter — measured 8 ms/matrix at batch 256; the uniform-k
-        version hits the same slices across the batch and runs ~30x
-        faster batched, at ~2x the arithmetic for a single matrix (the
-        masked steps are wasted work there).
+        gather/scatter; the uniform-k version hits the same slices across
+        the batch, so it stays plain slices when batched, at ~2x the
+        arithmetic for a single matrix (the masked steps are wasted work
+        there).
         """
 
         z0 = jnp.int32(0)
@@ -394,8 +392,7 @@ def eigvals_device(a: jnp.ndarray, max_iters: int | None = None,
     diagonal balancing before the QR iteration — essential for graded
     matrices (entries spanning orders of magnitude), free otherwise.
 
-    A (B, n, n) stack is vmapped automatically (0.25 ms/matrix measured
-    at B=256, n=32 on one chip).
+    A (B, n, n) stack is vmapped automatically.
     """
     a = jnp.asarray(a)
     if a.ndim == 3:
@@ -520,7 +517,7 @@ def _inverse_iteration(a, lam_re, lam_im):
         # re-seed clustered eigenvectors with the orthogonal complement
         # before the next solve (and orthogonalize the final output):
         # without this, every member of an eigenvalue cluster collapses
-        # onto the same dominant direction (VERDICT r2 weak item 2)
+        # onto the same dominant direction
         v = normalize(v)
         wr, wi = _cluster_orthogonalize(
             v[:, :n], v[:, n:], lam_re, lam_im, cluster_thr
@@ -578,7 +575,7 @@ def eig_device(a: jnp.ndarray, max_iters: int | None = None,
     Returns ``(lam_re, lam_im, v_re, v_im)`` with eigenvectors in columns
     (``v[:, j]`` belongs to ``lam[j]``, numpy layout), unit 2-norm, phase
     fixed so the largest component is real-positive. jit- and vmap-safe on
-    every backend (the TPU path the host-LAPACK ``eig_host`` cannot take).
+    every backend, with no host round trip, so it batches under vmap.
 
     Eigenvectors come from two rounds of inverse iteration against the
     Schur-derived eigenvalues, each round one batched 2n x 2n LU solve

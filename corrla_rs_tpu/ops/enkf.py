@@ -9,7 +9,7 @@ IMPLICITLY in an ensemble of N states — the workhorse for nonlinear /
 high-dimensional assimilation (weather, reservoir history matching)
 and for Bayesian calibration of expensive simulators (ES-MDA).
 
-TPU-first shape: the ensemble is a (N, n) matrix, so propagation is one
+Accelerator shape: the ensemble is a (N, n) matrix, so propagation is one
 vmapped batch and every analysis is dense linear algebra. Both analyses
 work in ENSEMBLE space — all O(N^2) Grams and an N x N eigh — so cost
 is O(N^2 (n + p)) and the n x n covariance is never formed:
@@ -278,7 +278,7 @@ def enkf_filter(x0_ens, y_seq, propagate, h, r, key,
     Multi-chip: ``mesh=`` member-shards the ensemble for the WHOLE
     scan — forecasts are embarrassingly member-parallel (zero
     collectives) and each analysis psums its O(p*(p+n)) Grams, so the
-    per-cycle ICI volume is independent of N.
+    per-cycle interconnect volume is independent of N.
     """
     x0_ens = jnp.asarray(x0_ens)
     n_ens, n_state = int(x0_ens.shape[0]), int(x0_ens.shape[1])
@@ -304,7 +304,7 @@ def enkf_filter(x0_ens, y_seq, propagate, h, r, key,
     h_mat = None if callable(h) else jnp.asarray(h)
     infl = float(inflation)
     # chol(R) is loop-invariant: hoist it out of the scan body (XLA is
-    # not guaranteed to hoist out of a while loop — ADVICE r4)
+    # not guaranteed to hoist out of a while loop)
     r_chol = None if r_diag is not None else jnp.linalg.cholesky(r_mat)
     if mesh is not None:
         x0_ens = _member_shard(x0_ens, mesh, axis_name)

@@ -13,7 +13,7 @@ stretch move"): the first half of the ensemble updates using partners
 drawn from the frozen second half, then vice versa — preserving detailed
 balance while letting each half advance as ONE vmapped batch.
 
-TPU-first shape (same design as ops/dream.py): per-generation randomness
+Accelerator shape (same design as ops/dream.py): per-generation randomness
 is pre-drawn in batched chunks (the per-op dispatch overhead of this
 runtime dominates small ensembles otherwise), both half-updates are
 vmapped log-prob evaluations, and the generation loop is a ``lax.scan``.

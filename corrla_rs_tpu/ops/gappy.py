@@ -22,7 +22,7 @@ Damodaran & Willcox 2004):
    the basis to the data each sweep and returns the basis, ALS
    optimizes fixed-rank factors directly.
 
-TPU-first shape: sensor rows are one static-shape gather; the LS solve
+Accelerator shape: sensor rows are one static-shape gather; the LS solve
 is an s x r lstsq via QR (or a ridge-regularized r x r Gram solve —
 both static); multiple snapshots are one batched matmul, NOT a vmapped
 loop. The repair sweep is a ``lax.scan`` whose body is

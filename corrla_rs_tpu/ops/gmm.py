@@ -5,8 +5,8 @@ fittable proposal family: a GMM fitted to posterior draws is the
 standard adaptive proposal for importance sampling (pairs with
 ops/psis) and the moment-matched bridge proposal (ops/bridge).
 
-TPU-first shape: one EM iteration is three dense batched kernels —
-(n, k) log-density matrix from a vmapped Cholesky whitening (MXU
+Accelerator shape: one EM iteration is three dense batched kernels —
+(n, k) log-density matrix from a vmapped Cholesky whitening (dense
 matmuls over components), a logsumexp row reduction for
 responsibilities, and weighted-Gram M-step updates — with the WHOLE EM
 loop a lax.scan at static iteration count (convergence is detected by

@@ -2,8 +2,8 @@
 
 The reference README lists GP regression as a TODO it never implemented
 (readme.md:34; SURVEY.md §2.4 item 5). This module completes that roadmap
-item TPU-natively: exact GP with RBF / Matern-5/2 kernels, Cholesky solves
-on the MXU, and marginal-likelihood hyperparameter optimization with exact
+item natively on the accelerator: exact GP with RBF / Matern-5/2 kernels, Cholesky solves
+as dense matmuls, and marginal-likelihood hyperparameter optimization with exact
 ``jax.grad`` gradients (BFGS in log-parameter space).
 """
 from __future__ import annotations
@@ -39,7 +39,7 @@ def gp_kernel_eval(r: jnp.ndarray, kernel: str, length_scale, signal_var):
 
 def _jitter(dtype):
     # f32 Cholesky needs a larger floor: a near-noise-free MLE solution
-    # leaves K within f32 rounding of singular (observed NaN on TPU)
+    # leaves K within f32 rounding of singular (NaN Cholesky)
     return 1e-4 if dtype == jnp.float32 else 1e-6
 
 
@@ -227,7 +227,7 @@ def _sgpr_factors(x, y, x_ind, log_params, kernel):
     Returns (l_mm, l_b, a, c) with
       l_mm = chol(K_mm + jitter), a = l_mm^-1 K_mn / sigma,
       l_b = chol(I + a a^T),      c = l_b^-1 a y / sigma,
-    everything O(n m^2) and matmul-shaped for the MXU. The ``a`` factor is
+    everything O(n m^2) and matmul-shaped. The ``a`` factor is
     returned because the ELBO's trace term needs sum(a*a) (see _sgpr_nlml).
     """
     ls, sv, nv = jnp.exp(log_params)

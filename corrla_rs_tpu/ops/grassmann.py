@@ -17,7 +17,7 @@ arrays, rotation-invariant) are interpolated entry-wise over the
 parameter coordinates (linear barycentric or any RbfInterp kernel);
 ``grassmann_exp`` maps the interpolant back to an orthonormal basis.
 
-TPU-first shape: log/exp are two thin SVDs plus matmuls (static shapes,
+Accelerator shape: log/exp are two thin SVDs plus matmuls (static shapes,
 jit-safe); all p anchor logs run as ONE vmapped SVD batch; tangent
 interpolation is one multi-output RBF solve (p x p kernel system,
 n*r outputs) — no per-entry loops anywhere.

@@ -16,8 +16,8 @@ Implementation (Stan-style single-phase warmup, then frozen kernel):
   applied for the post-warmup run;
 - divergences (non-finite Hamiltonian) auto-rejected and counted.
 
-TPU-first shape: all chains advance in ONE vmapped leapfrog — the
-gradient evaluation is a single batched call on the MXU for log-probs
+Accelerator shape: all chains advance in ONE vmapped leapfrog — the
+gradient evaluation is a single batched call as dense matmuls for log-probs
 built from matmuls — and the generation loop is ``lax.scan``. The whole
 warmup+run is two ``lax.scan`` programs; no per-step host sync.
 """

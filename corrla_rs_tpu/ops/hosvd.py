@@ -1,7 +1,7 @@
 """Truncated higher-order SVD / Tucker decomposition (extension).
 
 POD flattens multi-parameter snapshot families into one matrix; the
-natural TPU-era upgrade keeps the tensor structure: for a snapshot
+natural accelerator upgrade keeps the tensor structure: for a snapshot
 tensor X (space x time x parameter x ...), the truncated HOSVD
 (De Lathauwer, Moor & Vandewalle 2000) computes per-mode orthonormal
 bases U_k from the mode-k unfoldings and a small core
@@ -10,9 +10,9 @@ multilinear ranks (r_0, r_1, ...). ``hooi`` refines the bases by
 alternating least squares (HOOI), which is optimal per mode given the
 others.
 
-TPU-first shape: every unfolding SVD is this library's randomized SVD
+Accelerator shape: every unfolding SVD is this library's randomized SVD
 (the same sketch + power-iteration core PCA/POD/DMD compose — pass over
-the big unfoldings on the MXU instead of dense LAPACK SVDs), and mode
+the big unfoldings as dense matmuls instead of dense LAPACK SVDs), and mode
 products are single tensordots. Everything jits with static shapes.
 
 No reference analogue (the reference is strictly matrix-shaped).

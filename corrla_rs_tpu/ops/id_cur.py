@@ -20,10 +20,10 @@ then run greedy column-pivoted QR on the small B to pick the k pivot
 columns and form the interpolation matrix X = R11^{-1} R by one
 triangular solve.
 
-TPU-first shape: the QRCP is a ``lax.fori_loop`` over k rank-1
+Accelerator shape: the QRCP is a ``lax.fori_loop`` over k rank-1
 Gram-Schmidt downdates of the (l, n) panel — static shapes, one dynamic
 column gather per step, everything jitted; the heavy lifting (sketch,
-B = Q^T A) is MXU matmuls. Selection quality therefore matches QRCP on
+B = Q^T A) is dense matmuls. Selection quality therefore matches QRCP on
 the l-dimensional compression of A, the standard randomized-ID choice.
 """
 from __future__ import annotations

@@ -20,9 +20,9 @@ columns — independent of how many columns have ever been absorbed:
   rows of Vt). The running mean shift is absorbed as one extra rank-1
   correction column per batch.
 
-TPU-first notes: each update is ONE jitted kernel (projection matmuls,
+Accelerator notes: each update is ONE jitted kernel (projection matmuls,
 a reduced Householder QR of the (n, c) residual, an eigh-free small SVD
-on the MXU) with static shapes per (n, r, c) — repeated same-size
+as dense matmuls) with static shapes per (n, r, c) — repeated same-size
 batches reuse one compiled executable. State lives on device; nothing
 scales with the number of absorbed batches.
 """

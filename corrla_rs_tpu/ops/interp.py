@@ -1,9 +1,9 @@
 """Poly-augmented RBF interpolation.
 
 Parity with reference interp_utils.rs:11-153 (``RbfInterp`` + 4 kernels).
-TPU-first design: the reference builds the kernel matrix with an O(n^2)
-scalar double loop (interp_utils.rs:96-106); here it is one broadcasted
-pairwise-distance computation (MXU Gram matmul + VPU elementwise), and the
+Design: the reference builds the kernel matrix with an O(n^2) scalar
+double loop (interp_utils.rs:96-106); here it is one broadcasted
+pairwise-distance computation that XLA fuses elementwise, and the
 saddle system [[K, P], [P^T, 0]] is solved for *all* right-hand-side columns
 at once — fitting m outputs over the same support points costs one solve
 (the reference fits one ``RbfInterp`` per output, e.g. pod_rom.rs:78-95).
@@ -31,13 +31,11 @@ _KERNEL_NAMES = {1: "linear", 2: "multiquadric", 3: "cubic"}
 def pairwise_dists(xa: jnp.ndarray, xb: jnp.ndarray) -> jnp.ndarray:
     """Euclidean distance matrix (n_a, n_b).
 
-    Computed as the directly broadcasted difference norm (VPU elementwise,
+    Computed as the directly broadcasted difference norm (elementwise,
     XLA-fused — no (n_a, n_b, d) materialization). The Gram-expansion
-    matmul form is avoided: on TPU, XLA silently downgrades even
-    precision=HIGHEST for tiny contraction dims (measured 3e-3 relative
-    distance error at d=8 on v5e), and the feature dims in this library
-    are small. For large-N streaming, use
-    ops.pallas_kernels.pairwise_kernel_matrix (bf16x3 Gram on the MXU).
+    matmul form ||a||^2 - 2 a.b + ||b||^2 is avoided: it cancels
+    catastrophically for near points, and the feature dims in this
+    library are small, so there is no matmul worth having.
     """
     diff = xa[:, None, :] - xb[None, :, :]
     d2 = jnp.sum(diff * diff, axis=-1)
@@ -73,10 +71,9 @@ def rbf_fit(x: jnp.ndarray, y: jnp.ndarray, kernel: str, eps: float,
     (n + p, y_cols).
 
     method:
-      - 'solve' (default): LU solve — backward stable, ~100x more accurate
-        than the explicit pinv product in f32 on TPU (the saddle system is
-        ill-conditioned; measured 3e-3 vs 3e-1 support-point error for a
-        40-point multiquadric fit in f32).
+      - 'solve' (default): LU solve — backward stable, far more accurate
+        than the explicit pinv product in f32 (the saddle system is
+        ill-conditioned).
       - 'pinv': the reference's eps-regularized pseudoinverse
         (interp_utils.rs:139-142) — bitwise-parity semantics; prefer in f64.
     """

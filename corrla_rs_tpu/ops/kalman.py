@@ -9,7 +9,7 @@ white iff the model + noise covariances are right), and the innovations
 log-likelihood (the evidence for comparing identified orders/noise
 levels).
 
-TPU-first shape: the steady-state filter covariance solves the DARE by
+Accelerator shape: the steady-state filter covariance solves the DARE by
 a fixed-iteration Riccati recursion under lax.scan (static shapes, no
 data-dependent control flow; convergence is linear with ratio
 |lambda_max(A-KCA)|^2 so ~200 iterations is far past f64 for any

@@ -1,7 +1,7 @@
 """Batched on-device k-nearest-neighbor search.
 
 Replaces the reference's KdTree (active_subspaces.rs:24,71-77,90-112) with
-a dense pairwise-distance + ``lax.top_k`` formulation: O(N^2) FLOPs but MXU-
+a dense pairwise-distance + ``lax.top_k`` formulation: O(N^2) FLOPs but matmul-
 fast, fully vmappable, and exact. Memory is bounded on BOTH axes:
 
 - ``query_chunk``: queries are processed in fixed-size chunks.
@@ -11,7 +11,7 @@ fast, fully vmappable, and exact. Memory is bounded on BOTH axes:
   materialized, so million-point support sets fit on device. This is the
   SURVEY §7 "KdTree -> dense kNN memory at large N" answer: streaming
   tiles + top-k, XLA-fused (a hand-written Pallas variant was not needed
-  — the merge is top_k/matmul-shaped and MXU/VPU-bound already).
+  — the merge is top_k/matmul-shaped and matmul/elementwise-bound already).
 
 The C++ host kd-tree (native/) remains the better choice for huge-N,
 *low-dimensional*, latency-sensitive single queries; this module wins for

@@ -12,7 +12,7 @@ H = -grad^2 ln p(x_map). Exact for Gaussian posteriors; the standard
 calibration baseline and initializer for the samplers (start chains
 from N(x_map, H^-1) draws instead of a guess).
 
-TPU-first shape: multi-start BFGS runs ALL restarts as one vmapped
+Accelerator shape: multi-start BFGS runs ALL restarts as one vmapped
 optimization (jax.scipy BFGS is pure-jax), the Hessian comes from
 ``jax.hessian`` (exact, no finite differences — the reference
 finite-diffs every gradient it needs, univariate_rv.rs:136-154), and

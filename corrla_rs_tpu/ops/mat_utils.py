@@ -12,7 +12,7 @@ must be preserved for parity with the reference:
 - the reference's quirky ``mat_linspace`` (reference mat_utils.rs:600-610)
 
 Everything is a pure jnp function, jit-safe, dtype-polymorphic (f32/f64),
-and runs on the TPU MXU where a matmul is involved.
+and states its matmul precision.
 """
 from __future__ import annotations
 
@@ -20,8 +20,8 @@ import jax.numpy as jnp
 from jax import lax
 
 # Matmul precision used in accuracy-sensitive cores (power iteration, Gram
-# products). HIGHEST forces full-f32 accumulation on TPU (3-pass bf16x3)
-# instead of default bf16 MXU rounding; required for sigma rel-err < 1e-6.
+# products). HIGHEST asks for full f32; the GPU's default for f32 is TF32
+# (about 3 decimal digits), which misses sigma rel-err < 1e-6.
 PRECISION = lax.Precision.HIGHEST
 
 
@@ -111,9 +111,8 @@ def mat_linspace(start: float, end: float, n_steps: int, dtype=None) -> jnp.ndar
 def mat_pinv_comp(x, eps: float = 1.0e-16, mode: str = "reference"):
     """Complex Moore-Penrose pseudoinverse (host numpy).
 
-    Runs on host LAPACK: complex device dtypes are unsupported on some TPU
-    runtimes (this environment's included), and every caller (DMDc mode
-    algebra) needs it only for tiny (n, r) matrices.
+    Runs on host LAPACK: every caller (DMDc mode algebra) needs it only
+    for tiny (n, r) matrices.
 
     mode="reference": parity with reference mat_utils.rs:56-71 — inverts
       every singular value as ``1 / (s + eps)`` with additive eps and no
@@ -142,8 +141,7 @@ def pinv_comp_parts(x_re: jnp.ndarray, x_im: jnp.ndarray, rtol: float | None = N
     """Complex Moore-Penrose pseudoinverse ON DEVICE, complex-free.
 
     Same rank-cutoff semantics as ``mat_pinv_comp(mode="cutoff")`` but
-    jit/vmap-safe on backends with no complex dtype (this environment's
-    TPU): the complex matrix X = Xr + i Xi is embedded as the real
+    jit/vmap-safe on backends with no complex dtype: the complex matrix X = Xr + i Xi is embedded as the real
     2n x 2r matrix [[Xr, -Xi], [Xi, Xr]]; the embedding is a *-algebra
     homomorphism, so pinv(emb(X)) = emb(pinv(X)) and the pinv's real/imag
     parts are read back off the blocks. Singular values of the embedding

@@ -12,7 +12,7 @@ high-dimensional models first (drop the inputs with tiny mu_star, spend
 the Sobol' budget on the rest). The reference has no analogue (its only
 global-sensitivity tool is the active-subspace measure).
 
-TPU-first shape: trajectory construction is pure ``jax.random`` algebra
+Accelerator shape: trajectory construction is pure ``jax.random`` algebra
 (radial steps via a permuted identity), all r * (d + 1) points evaluate
 in ONE batched model call, and the elementary effects are a reshape +
 diff — no Python loops anywhere.

@@ -21,7 +21,7 @@ closed-form optimal allocation
     r_i = sqrt( c_1 (rho_i^2 - rho_{i+1}^2) / (c_i (1 - rho_2^2)) ),
     m_1 = budget / (c . r),   m_i = r_i m_1.
 
-TPU-first: model evaluations are user callables over BATCHED inputs
+Accelerator design: model evaluations are user callables over BATCHED inputs
 (vmap/jit them once, evaluate thousands of samples per dispatch); the
 statistics (pilot covariances, the estimator itself) are trivially
 jitted reductions. The allocation is tiny host math on pilot statistics.

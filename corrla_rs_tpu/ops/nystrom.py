@@ -12,7 +12,7 @@ Nystrom approximation
 with shift stabilization). This module returns its eigendecomposition
 directly — top-r eigenpairs of a PSD matrix from ONE pass over A.
 
-TPU-first shape: everything is MXU matmuls + one Cholesky of an (l, l)
+Accelerator shape: everything is dense matmuls + one Cholesky of an (l, l)
 core + one tall-skinny CholeskyQR2 + one (l, l) eigh — no host sync, no
 general SVD. The stabilizing shift nu = eps * ||Y|| makes the core
 Cholesky safe at f32 even when A's spectrum underflows the sketch.

@@ -12,7 +12,7 @@ of the marginal likelihood p(y_{1:T}) (Del Moral 2004), the
 model-evidence number that turns a state-space model into something
 you can compare and calibrate (particle MCMC uses exactly this).
 
-TPU-first shape: both filters are ONE lax.scan over time with static
+Accelerator shape: both filters are ONE lax.scan over time with static
 shapes. The particle step is vmapped propagation + a weight logsumexp
 + systematic resampling expressed as searchsorted gather (no
 data-dependent control flow: resampling is computed every step and
@@ -155,8 +155,7 @@ def ukf_filter(x0_mean, x0_cov, y_seq, f, h, q, r,
     alpha/beta/kappa: the standard UT scaling knobs (default alpha=1:
     the textbook 1e-3..1e-1 values make the UT weights huge-and-
     cancelling (w0 = -99 at alpha=0.1, n=2), which costs ~4 digits in
-    f32 on the TPU — measured 0.57 abs mean err vs 1e-8 with alpha=1
-    on the linear fixture; shrink alpha only in f64); jitter: added to
+    f32; shrink alpha only in f64); jitter: added to
     the predicted covariance diagonal before each Cholesky (set ~1e-9
     for stiff f32 problems).
 
@@ -211,9 +210,8 @@ def ukf_filter(x0_mean, x0_cov, y_seq, f, h, q, r,
             [mean[None, :], mean + offs, mean - offs], axis=0)
 
     # all moment sums below are BROADCASTED multiply+reduce, not
-    # matmuls: the contraction dim is 2n+1 (tiny), and XLA:TPU
-    # silently downgrades HIGHEST-precision matmuls with tiny
-    # contraction dims (the round-3 DMDc cliff; measured here too)
+    # matmuls: the contraction dim is 2n+1 (tiny), and an elementwise
+    # sum keeps full f32 whatever the backend's matmul precision
     def _wsum(w, rows):
         return jnp.sum(w[:, None] * rows, axis=0)
 
@@ -246,7 +244,7 @@ def ukf_filter(x0_mean, x0_cov, y_seq, f, h, q, r,
         cov_new = 0.5 * (cov_new + cov_new.T)
         sign, logdet = jnp.linalg.slogdet(s)
         # f32 PD breakdown of the innovation covariance must surface as
-        # NaN in loglik, not a silently wrong value (ADVICE r4)
+        # NaN in loglik, not a silently wrong value
         logdet = jnp.where(sign > 0, logdet, jnp.nan)
         quad = jnp.sum(innov * jnp.linalg.solve(s, innov))
         ll = ll - 0.5 * (p * log2pi + logdet + quad)

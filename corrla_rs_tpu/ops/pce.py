@@ -10,7 +10,7 @@ Complements ops/sobol (estimator on the true model) and ops/morris
 (screening): fit a PCE on a space-filling design (ops/design), then get
 the full sensitivity picture for free.
 
-TPU-first shape: the basis matrix is built by dimension-wise recurrence
+Accelerator shape: the basis matrix is built by dimension-wise recurrence
 tables + a product gather over the multi-index set (one (n, P) matrix),
 the fit is a single least-squares solve, prediction is one matmul.
 Everything jits; the multi-index set is static (computed on host from

@@ -8,7 +8,7 @@ response: the standard tool for p >~ n with correlated columns.
 SIMPLS (de Jong 1993) rather than NIPALS: each component is the dominant
 left singular vector of the DEFLATED (p, q) cross-covariance S — no
 per-component passes over the (n, p) data, so the O(n p) work is two
-Gram matmuls on the MXU and the component loop is an O(p q k) fori_loop
+Gram matmuls as dense matmuls and the component loop is an O(p q k) fori_loop
 over small matrices (orthogonal-basis deflation of S). For univariate y
 SIMPLS coincides with NIPALS-PLS1 (tested vs sklearn's oracle).
 """

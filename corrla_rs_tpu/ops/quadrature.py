@@ -17,7 +17,7 @@ with nested Clenshaw-Curtis 1-d rules (m_1 = 1, m_k = 2^(k-1) + 1) by
 default, or (non-nested) Gauss-Legendre / Gauss-Hermite. Nodes and
 weights are precomputed on host (numpy, trace-time constants, like the
 library's designs in ops/design.py); evaluation is ONE vmapped model
-call + a weighted reduction — the TPU sees a single batched evaluation
+call + a weighted reduction — the device sees a single batched evaluation
 regardless of grid structure.
 """
 from __future__ import annotations

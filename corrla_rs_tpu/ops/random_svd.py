@@ -14,18 +14,19 @@ with the reference (random_svd.rs:15-110):
   (random_svd.rs:92-109)
 - fat inputs (nrows < ncols) handled by transposition (random_svd.rs:69-74)
 
-TPU-first design notes:
+Accelerator design notes:
 
-- The two big matmuls per power iteration run on the MXU; matmul precision
-  is HIGHEST (full-f32 accumulation) by default, which f32 needs to hit
-  sigma rel-err < 1e-6.
+- The two big matmuls per power iteration dominate; matmul precision is
+  HIGHEST (full f32) by default, which f32 needs to hit sigma rel-err
+  < 1e-6 (the GPU's default for f32 is TF32).
 - ``stabilize='always'`` does QR every iteration — numerically stronger in
   f32 than the reference's skip-first-3 heuristic; ``'reference'`` keeps
   iteration-count parity with the reference behavior.
 - Everything is jit-safe with static shapes; the power-iteration loop is a
   ``lax.fori_loop`` so compile time is independent of ``n_iter``.
-- Multi-chip: see corrla_rs_tpu.parallel.sharded_rsvd (row-sharded A over an
-  ICI mesh, psum'd Gram products, CholeskyQR2 for the distributed thin-QR).
+- Multi-device: see corrla_rs_tpu.parallel.sharded_rsvd (row-sharded A over
+  a device mesh, psum'd Gram products, CholeskyQR2 for the distributed
+  thin-QR).
 """
 from __future__ import annotations
 
@@ -38,7 +39,10 @@ from jax import lax
 from corrla_rs_tpu.ops.mat_utils import PRECISION
 from corrla_rs_tpu.utils.prng import as_key
 
-__all__ = ["power_iter", "random_svd", "block_krylov_svd", "single_pass_svd"]
+__all__ = [
+    "power_iter", "random_svd", "block_krylov_svd", "single_pass_svd",
+    "sigma_values",
+]
 
 
 def _householder_qr(y: jnp.ndarray) -> jnp.ndarray:
@@ -60,13 +64,12 @@ def _cholesky_qr2(y: jnp.ndarray) -> jnp.ndarray:
     ~ridge-level orthonormality in their junk directions, which the next
     round cleans up.
 
-    (eigh-based Loewdin whitening was tried and rejected: TPU's f32 eigh
-    is itself only ~1e-3 accurate, which 1/sqrt(w_small) amplifies
-    catastrophically.)
+    (eigh-based Loewdin whitening was rejected: 1/sqrt(w_small)
+    amplifies the f32 eigh's error catastrophically.)
 
-    On TPU this is ~30x faster than Householder QR for tall-skinny panels
-    (MXU Gram matmul vs a long sequential kernel): ~1 ms vs 35 ms for a
-    100k x 110 f32 panel on v5e.
+    Its cost is one Gram matmul and a k x k Cholesky per round, instead
+    of Householder QR's long sequence of panel updates over the tall
+    matrix.
     """
     dtype = y.dtype
     if dtype == jnp.float32:
@@ -93,6 +96,29 @@ def _cholesky_qr2(y: jnp.ndarray) -> jnp.ndarray:
     return one_round(one_round(one_round(y)))
 
 
+def sigma_values(b: jnp.ndarray) -> jnp.ndarray:
+    """Singular values of the small projected matrix B, descending.
+
+    A values-only QR-algorithm SVD (LAPACK gesvd without vectors, dqds).
+    On the GPU the vector-computing SVD loses accuracy in f32: at the
+    100k x 10k bench shape its sigma carried 2.0e-6 max relative error
+    against float64 (gesvd with vectors) and 1.4e-5 at 10k x 1k (Jacobi,
+    which JAX picks below 1024 columns), against 1.4e-7 here (H100). The
+    sigma target is 1e-6.
+
+    On the CPU it is LAPACK's values-only default (gesdd): accurate there,
+    and unlike gesvd a custom call that ``jax.export`` may serialize.
+    """
+    def values_only(b, algorithm=None):
+        return lax.linalg.svd(b, full_matrices=False, compute_uv=False,
+                              algorithm=algorithm)
+
+    return lax.platform_dependent(
+        b, cpu=values_only,
+        default=lambda b: values_only(b, lax.linalg.SvdAlgorithm.QR),
+    )
+
+
 def _thin_qr(y: jnp.ndarray, qr_method: str = "householder") -> jnp.ndarray:
     if qr_method == "cholesky":
         return _cholesky_qr2(y)
@@ -117,7 +143,7 @@ def power_iter(
         amplify (s1/sk)^6, which overflows the f32 mantissa range and
         permanently collapses the subordinate sketch directions (observed:
         POD modes of a 20-snapshot pulse family reconstructed with rel err
-        ~1.0 on TPU f32 under 'reference', ~truncation-limited under
+        ~1.0 in f32 under 'reference', ~truncation-limited under
         'always').
       - 'reference': thin-QR only when iteration index > 2 (the reference
         heuristic, random_svd.rs:37-39), L2 rescale every iteration.
@@ -132,7 +158,7 @@ def power_iter(
     if stabilize == "auto":
         stabilize = "always" if a.dtype == jnp.float32 else "reference"
     if qr_method == "auto":
-        # CholeskyQR2 is ~30x faster than Householder on TPU but needs
+        # CholeskyQR2 is cheaper than Householder on tall panels but needs
         # well-conditioned panels — guaranteed only when every iteration
         # re-orthonormalizes; pair it with 'always' and keep Householder
         # for the reference skip-QR heuristic.
@@ -158,8 +184,8 @@ def power_iter(
     # fast path. In-loop CholeskyQR only needs to keep the panel
     # conditioned; on rank-deficient sketches its ridge-fallback leaves
     # junk directions ~1e-2 off orthonormal, which (via Householder here)
-    # never reaches B. Cost: one 35 ms call at bench scale vs ~30x savings
-    # on the n_iter in-loop QRs.
+    # never reaches B. Cost: one Householder QR per call instead of
+    # n_iter of them.
     return _thin_qr(y, "householder")
 
 
@@ -184,7 +210,7 @@ def random_svd(
 
     Parity with reference random_svd.rs:63-110 (including the fat-matrix
     transpose path). The small-B dense SVD is replicated work (B is
-    (k, min_dim)); on TPU it lowers to XLA's QDWH-based SVD.
+    (k, min_dim)).
     """
     key = as_key(key)
     fat = a.shape[0] < a.shape[1]
@@ -194,15 +220,16 @@ def random_svd(
     rank = min(omega_rank, sketch_rank)
 
     # power_precision: matmul precision of the power iteration only (the
-    # B = Q^T A product stays HIGHEST). Precision.HIGH (bf16x3) keeps f32
-    # sigma parity at 7.4e-7 (< 1e-6 target) and is ~18% faster than
-    # HIGHEST on the 100k x 10k bench.
+    # B = Q^T A product stays HIGHEST). On the GPU, Precision.HIGH is
+    # TF32; chip_smoke.py's rsvd phase measures each setting's sigma
+    # error against float64 on the same sketch.
     q = power_iter(
         aa, sketch_rank, n_iter, key=key, stabilize=stabilize,
         qr_method=qr_method, precision=power_precision,
     )
     b = jnp.matmul(q.T, aa, precision=PRECISION)
-    u_b, s, vt = jnp.linalg.svd(b, full_matrices=False)
+    u_b, _s, vt = jnp.linalg.svd(b, full_matrices=False)
+    s = sigma_values(b)
     u = jnp.matmul(q, u_b, precision=PRECISION)
 
     if fat:

@@ -13,8 +13,8 @@ sparse enough — the standard tool for gross outliers, sensor glitches,
 and foreground/background separation, where classical PCA (L2) is
 destroyed by a single bad entry.
 
-TPU-first shape: every inexact-ALM iteration is one singular-value
-soft-threshold (an SVD — the MXU-heavy step) plus elementwise
+Accelerator shape: every inexact-ALM iteration is one singular-value
+soft-threshold (an SVD — the matmul-heavy step) plus elementwise
 shrinkage and residual updates, all fused in ONE jitted step function
 with (mu, rho, lambda) as traced scalars so the whole sweep compiles
 once. The loop runs eagerly in Python on the device arrays (the
@@ -91,7 +91,7 @@ def robust_pca(m_data, lam: float | None = None, mu0: float | None = None,
 
     mesh: optional 1-D jax.sharding.Mesh — M/L/S/Y shard along the tall
     row axis and each sweep's SVD runs as a psum'd Gram + replicated
-    (n, n) eigh (see _ialm_step_gram; VERDICT r3 item 5). Requires the
+    (n, n) eigh (see _ialm_step_gram). Requires the
     column count to fit replicated on every device.
 
     Returns (l, s, info) with info = {iterations, rel_residual,

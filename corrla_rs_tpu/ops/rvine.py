@@ -26,7 +26,7 @@ chain needs is reachable through some fitted edge (this is exactly the
 property the classic R-vine-matrix "maximum matrix" encodes; the
 memoized search finds the same edges without the matrix bookkeeping).
 
-TPU notes: as in ops/vine, every h / h-inverse / log-pdf is an
+Accelerator notes: as in ops/vine, every h / h-inverse / log-pdf is an
 elementwise jax expression vectorized over the whole sample; tree
 selection is tiny host graph work over d(d-1)/2 scalars.
 """

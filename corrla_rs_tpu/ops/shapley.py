@@ -175,7 +175,7 @@ def shapley_effects_quadrature(model: Callable, mean=None, std=None,
     marginalization, so a tensorized Gauss-Hermite grid gives ALL 2^d
     subset variances val(S) = Var(E[Y|X_S]) from ONE batched model
     evaluation of n_quad^d points — no sampling noise at all, and the
-    single big batch is exactly the shape the MXU wants. Exactness: the
+    single big batch is exactly the shape a matmul unit wants. Exactness: the
     subset variances integrate the SQUARE of the conditional mean, so a
     degree-p polynomial model needs the rule exact to degree 2p —
     n_quad >= p + 1 per dim (NOT the (p+1)/2 a plain Gauss rule would

@@ -6,7 +6,7 @@ The reference solves LS problems with dense QR/pinv at O(m n^2) host
 flops. For the very tall systems this library targets (m >> n: RBF
 weight solves over long sample axes, regression on streamed features),
 the randomized recipe is asymptotically and practically faster on an
-MXU: ONE sketch matmul S A (the only O(m n s) work, a dense MXU pass),
+device: ONE sketch matmul S A (the only O(m n s) work, a dense matmul pass),
 a QR of the small (s, n) sketch, and a short preconditioned CGLS loop
 whose iterates each cost two more tall matmuls. With s ~= 4 n the
 preconditioned system has condition number ~3 REGARDLESS of cond(A)

@@ -17,8 +17,8 @@ EXPONENTIALLY in m for smooth f (quadrature) and as 1/sqrt(n_probes)
 (Monte Carlo), so m ~ 40, p ~ 24 gives 3-digit log-dets of well-
 conditioned operators at O(p * m) matvecs total.
 
-TPU-first shape: all probes advance in LOCKSTEP — one batched (n, p)
-matvec per Lanczos step (MXU matmul for explicit matrices), full
+Accelerator shape: all probes advance in LOCKSTEP — one batched (n, p)
+matvec per Lanczos step (dense matmul for explicit matrices), full
 reorthogonalization as two einsums against the stored basis (m is
 static, the loop is ``lax.fori_loop``), then one vmapped (p, m, m)
 ``eigh``. Matrix-free operators use the same batched-callable protocol

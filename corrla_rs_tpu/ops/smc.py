@@ -24,7 +24,7 @@ Algorithm per stage (all inside ONE jitted kernel, static shapes):
 The stage loop runs eagerly on host (the number of stages is data-
 dependent and small, typically 5-50); each stage is one fixed-shape jit.
 
-TPU-first: the population is the batch axis — every log-prob evaluation,
+Accelerator design: the population is the batch axis — every log-prob evaluation,
 resample gather and mutation is one vmapped device kernel.
 """
 from __future__ import annotations

@@ -9,9 +9,9 @@ Saltelli (2010) / Jansen (1999) pick-freeze estimators:
     ST_i = 0.5 * mean((f(A) - f(AB_i))^2) / Var(f)      (total effect)
 
 where A, B are two independent sample matrices and AB_i is A with column
-i replaced by B's. TPU-first shape: all (d + 2) * n model evaluations are
+i replaced by B's. Accelerator shape: all (d + 2) * n model evaluations are
 stacked into ONE batched call to the (vectorized, ideally jitted) model,
-so the MXU sees a single large batch; the estimator itself is a handful
+so the device sees a single large batch; the estimator itself is a handful
 of reductions. Bootstrap confidence intervals resample evaluation ROWS
 (no re-evaluation) and are vmapped.
 

@@ -15,9 +15,9 @@ POLISHING step: re-solve the unregularized LS restricted to the
 selected support. Sweeping gamma traces the Pareto front between
 model order (nnz) and performance loss.
 
-TPU-first shape: the only data-sized contractions are Phi^H Phi and
+Accelerator shape: the only data-sized contractions are Phi^H Phi and
 X^H Phi — computed as real matmuls on device (complex split into
-re/im parts; this TPU has no complex dtypes). Everything after is
+re/im parts). Everything after is
 O(r^2) host complex: the r x r ADMM iteration and the polishing solve.
 """
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Correlation / covariance / polynomial-regression layer.
 
 Parity with reference stats_corr.rs:14-249. All routines are pure jnp
-expressions that jit onto the TPU MXU; the local polynomial fits are
+expressions that jit into dense matmuls; the local polynomial fits are
 vmap-able (used batched by active_subspaces).
 
 Deviations (recorded per SURVEY.md §2.4):

@@ -10,8 +10,8 @@ randomized QB step and applies Hutchinson only to the (small) residual
 — error ~ tr(A)/k on PSD matrices, a quadratic improvement that makes
 tiny probe budgets useful.
 
-TPU-first shape: probes are drawn as ONE (n, k) Rademacher block, every
-step is a dense (n, n) x (n, k) MXU matmul, one jit end-to-end. Both
+Accelerator shape: probes are drawn as ONE (n, k) Rademacher block, every
+step is a dense (n, n) x (n, k) dense matmul, one jit end-to-end. Both
 estimators also accept a matvec CALLABLE for matrix-free operators
 (then the batched probe block goes through a single call: supply a
 function that maps (n, k) -> (n, k)).
@@ -79,7 +79,7 @@ def hutchpp_trace(a, n_probes: int = 64, key=0,
         n = int(n_dim)
         # Respect the session's x64 config instead of assuming f64:
         # under default f32 jax, a hard jnp.float64 default would
-        # silently downgrade with a warning (ADVICE r3).
+        # silently downgrade with a warning.
         dt = dtype if dtype is not None else jnp.result_type(float)
     else:
         a = jnp.asarray(a)

@@ -16,7 +16,7 @@ Tucker usually compresses harder.
 TT-SVD here is the sequential-unfolding algorithm built on the
 library's randomized SVD core (parity random_svd.rs:63-110 semantics
 for each unfolding): each step is one truncated SVD of a
-(r_{k-1} n_k, prod tail) matrix — MXU matmuls via ops/random_svd for
+(r_{k-1} n_k, prod tail) matrix — dense matmuls via ops/random_svd for
 large unfoldings, exact jnp SVD for small ones. ``tt_round``
 re-compresses an existing train (right-to-left QR orthogonalization
 sweep, then left-to-right truncated-SVD sweep — the classic rounding

@@ -15,8 +15,8 @@ and selects the family by AIC; conditioning uses the h-functions
 gumbel and t, which use fixed-iteration bisection — jit-friendly, no
 data-dependent control flow).
 
-TPU-first notes: Kendall's tau is the O(n^2) sign-product mean computed as
-two broadcasted comparisons (VPU); every h/h-inverse/log-pdf is an
+Accelerator notes: Kendall's tau is the O(n^2) sign-product mean computed as
+two broadcasted comparisons (elementwise); every h/h-inverse/log-pdf is an
 elementwise expression vectorized over the whole sample; the tree
 recursion is a Python loop over the (small) dimension, everything inside
 is jittable.
@@ -86,7 +86,7 @@ def kendall_tau(x, y, method: str = "auto"):
     """Kendall's tau.
 
     method='device': O(n^2) broadcasted sign-product mean on the
-    accelerator (VPU-friendly, exact for tie-free data).
+    accelerator (elementwise-friendly, exact for tie-free data).
     method='host': Knight's O(n log n) merge-sort algorithm in the C++
     runtime (native/corrla_host.cpp) — use for large n.
     method='auto' (default): device up to 8192 points, host beyond when

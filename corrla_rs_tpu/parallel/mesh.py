@@ -4,15 +4,15 @@ This is the rebuild's communication backend (the reference has none — its
 only parallelism is single-process Rayon threading, SURVEY.md §2.2). One
 module owns:
 
-- mesh construction (`make_mesh`) over ICI (single host) or ICI+DCN
-  (multi-host via jax.distributed, handled transparently by jax),
+- mesh construction (`make_mesh`) over one host's devices or several
+  hosts (multi-host via jax.distributed, handled transparently by jax),
 - canonical axis names: ``"rows"`` for sharding the tall/sample dimension
   of data matrices (RSVD/PCA/POD/DMD), ``"chains"`` for sharding MCMC
   chain populations,
 - helpers for row-sharded placement of big matrices.
 
 Collectives used by the sharded kernels: ``psum`` for Gram-product
-reductions riding ICI, ``all_gather`` for per-step DEMC chain heads.
+reductions over the interconnect, ``all_gather`` for per-step DEMC chain heads.
 """
 from __future__ import annotations
 

@@ -1,11 +1,11 @@
-"""Multi-chip randomized SVD: row-sharded A over an ICI mesh.
+"""Multi-chip randomized SVD: row-sharded A over a device mesh.
 
 The north-star speed lever (SURVEY.md §7 stage 4). The tall matrix A
 (n, m) is sharded along its row axis across the mesh; per power iteration:
 
-    Y_l   = A_l @ Omega                       (local MXU matmul)
-    Z     = psum_rows(A_l^T @ Y_l)            (Gram reduction over ICI)
-    Y_l   = A_l @ Z                           (local MXU matmul)
+    Y_l   = A_l @ Omega                       (local dense matmul)
+    Z     = psum_rows(A_l^T @ Y_l)            (Gram reduction over the interconnect)
+    Y_l   = A_l @ Z                           (local dense matmul)
 
 The in-loop distributed thin-QR is the preconditioned ridge-fallback
 CholeskyQR (three rounds of psum'd column norms + Gram, Cholesky with
@@ -33,6 +33,7 @@ from jax import lax
 from jax.sharding import PartitionSpec as P
 
 from corrla_rs_tpu.ops.mat_utils import PRECISION
+from corrla_rs_tpu.ops.random_svd import sigma_values
 from corrla_rs_tpu.parallel.mesh import make_mesh, row_sharding
 from corrla_rs_tpu.utils.prng import as_key
 
@@ -140,7 +141,8 @@ def _sharded_rsvd_jit(a, omega_rank, n_iter, n_oversamples, key, stabilize,
     def kernel(a_l, omega):
         q_l = _power_iter_sharded(a_l, omega, n_iter, stabilize, axis_name)
         b = lax.psum(jnp.matmul(q_l.T, a_l, precision=PRECISION), axis_name)
-        u_b, s, vt = jnp.linalg.svd(b, full_matrices=False)
+        u_b, _s, vt = jnp.linalg.svd(b, full_matrices=False)
+        s = sigma_values(b)  # see ops.random_svd.sigma_values
         u_l = jnp.matmul(q_l, u_b, precision=PRECISION)
         return u_l, s, vt
 

@@ -3,7 +3,7 @@
 Each DEMC proposal reads the heads of two random *other* chains
 (space_samplers.rs:326-347), so chains can't advance independently: per
 step the (n_chains, ndim) head block — tiny — is ``all_gather``-ed over
-ICI while histories stay sharded. This is the SURVEY.md §2.2 row-3 design:
+the interconnect while histories stay sharded. This is the SURVEY.md §2.2 row-3 design:
 "chains sharded with all_gather of head states per step".
 
 Statistically identical to ops.samplers.demc_run (same proposal/accept
@@ -156,8 +156,7 @@ def _dream_sharded_jit(heads, ln_prob_fn, n_steps, key, delta_max, n_cr,
             cr_l = sl(cr_ids)
             cr = (cr_l.astype(dtype) + 1.0) / n_cr
             mask = sl(z) < cr[:, None]
-            # one-hot OR instead of a scatter (see ops/dream.py — the
-            # scatter-free generation body measured ~1.9x on chip)
+            # one-hot OR instead of a scatter (see ops/dream.py)
             mask = mask | (jnp.arange(d)[None, :] == sl(force)[:, None])
             d_eff = jnp.sum(mask.astype(dtype), axis=1)
             gamma = 2.38 / jnp.sqrt(2.0 * sl(delta).astype(dtype) * d_eff)

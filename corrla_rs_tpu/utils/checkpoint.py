@@ -199,8 +199,8 @@ def load_model(path: str):
     for key in data.files:
         if key.startswith("arr_"):
             val = data[key]
-            # complex arrays stay host-side (TPU devices reject complex
-            # dtypes; DMDc.lambdas is deliberately a host numpy array)
+            # complex arrays stay host-side (DMDc.lambdas is deliberately
+            # a host numpy array)
             setattr(
                 model, key[4:],
                 val if np.iscomplexobj(val) else jnp.asarray(val),

@@ -29,7 +29,7 @@ class RsvdConfig:
     # 'auto' resolves per-dtype: 'always' for f32, 'reference' for f64
     # (see ops.random_svd.power_iter)
     stabilize: str = "auto"
-    qr_method: str = "auto"   # 'householder' (safest) / 'cholesky' (TPU fast)
+    qr_method: str = "auto"   # 'householder' (safest) / 'cholesky' (fast)
 
 
 @dataclass(frozen=True)

@@ -16,7 +16,7 @@ at all (in-memory structs only, SURVEY.md §5).
   DMDc rollout ships as one .stablehlo blob).
 
 Artifacts record the lowering platform; export on the platform you serve
-on (a CPU-exported artifact will not run on TPU and vice versa — jax
+on (a CPU-exported artifact will not run on the GPU and vice versa — jax
 raises a clear error).
 """
 from __future__ import annotations

@@ -7,8 +7,8 @@ The reference's only instrumentation is ad-hoc SystemTime deltas in tests
   TensorBoard/XProf trace of every XLA kernel.
 - ``annotate(name)``: names a region inside a trace
   (``jax.profiler.TraceAnnotation``).
-- ``timed(fn)``: wall-clock with a real device sync — on this TPU runtime
-  ``block_until_ready`` returns early, so the sync is a scalar host fetch.
+- ``timed(fn)``: best wall-clock of a few runs, each ended by
+  ``jax.block_until_ready``.
 """
 from __future__ import annotations
 
@@ -16,18 +16,8 @@ import contextlib
 import time
 
 import jax
-import jax.numpy as jnp
 
-__all__ = ["trace", "annotate", "timed", "device_sync"]
-
-
-def device_sync(tree) -> float:
-    """Force real completion of every array in a pytree; returns a checksum."""
-    total = 0.0
-    for leaf in jax.tree.leaves(tree):
-        if isinstance(leaf, jax.Array) and leaf.size:
-            total += float(jnp.real(leaf.ravel()[0]))
-    return total
+__all__ = ["trace", "annotate", "timed"]
 
 
 @contextlib.contextmanager
@@ -43,13 +33,11 @@ def annotate(name: str):
 
 
 def timed(fn, *args, n_runs: int = 3, **kwargs):
-    """(best_wall_seconds, last_result) with warmup and honest sync."""
-    result = fn(*args, **kwargs)
-    device_sync(result)
+    """(best_wall_seconds, last_result), after one warm-up call."""
+    result = jax.block_until_ready(fn(*args, **kwargs))
     best = float("inf")
     for _ in range(n_runs):
         t0 = time.perf_counter()
-        result = fn(*args, **kwargs)
-        device_sync(result)
+        result = jax.block_until_ready(fn(*args, **kwargs))
         best = min(best, time.perf_counter() - t0)
     return best, result

@@ -1,15 +1,13 @@
 """Out-of-core streamed RSVD benchmark (matrices larger than HBM).
 
 Streams an n x 10k f32 matrix that never resides on device (nor, with
-the tiled source, on host) through ops/streaming's drivers on one TPU
-chip, and verifies the rank-100 singular values against the exact
+the tiled source, on host) through ops/streaming's drivers on one GPU, and verifies the rank-100 singular values against the exact
 identity sigma(A) = sqrt(n_tiles) * sigma(B) for A = [B; B; ...; B].
 
 Usage: python examples/benchmark_streaming.py [--tiles 128] [--gb-only]
 
 The reference factorizes anything fitting host RAM
-(random_svd.rs:63-110); this driver is bounded by host *storage* —
-the measured effective GB/s goes to BASELINE.md.
+(random_svd.rs:63-110); this driver is bounded by host *storage*.
 """
 from __future__ import annotations
 

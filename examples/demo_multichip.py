@@ -1,9 +1,9 @@
 """Multi-chip workflows on a device mesh.
 
 Runs on any device population; when fewer than 8 devices are attached
-(e.g. the single-TPU bench environment) it provisions a virtual 8-device
+(e.g. a single-GPU host) it provisions a virtual 8-device
 CPU backend, exactly like tests/conftest.py — the shardings, collectives
-and numerics are identical to a real 8-chip ICI mesh, only the transport
+and numerics are identical to a real 8-device mesh, only the transport
 differs.
 
 Demonstrates every sharded path in the library:

@@ -2,7 +2,7 @@
 //
 // The reference is a single Rust crate whose "runtime" is Rayon
 // shared-memory threading (SURVEY.md §2.2). The rebuild's compute path is
-// XLA on TPU; this C++ module is the host-side counterpart for work that
+// XLA on the GPU; this C++ module is the host-side counterpart for work that
 // is a poor fit for the device:
 //
 //  - cs_dirichlet_rejection: multithreaded constrained-Dirichlet rejection
@@ -282,9 +282,8 @@ void kdtree_knn(void* tree, const double* queries, int64_t m, int64_t k,
 // DEMC MCMC with a constrained-Dirichlet target: the compiled
 // reference-class competitor for cs_mcmc_dirichlet_sample (the reference
 // runs this exact pipeline as a Rayon loop, space_samplers.rs:252-418 +
-// lib_math_utils_py.rs:107-168). Used to pin BASELINE.md's small-MCMC
-// row: the routed JAX path must stay within ~2x of this on the same
-// host (VERDICT r3 item 7).
+// lib_math_utils_py.rs:107-168). api.cs_mcmc_dirichlet_sample runs it
+// for small chain populations.
 //
 // Semantics mirror the reference: per generation, every chain proposes
 // x' = x + gamma*(x_a - x_b) + U(0, eps) from two distinct OTHER chains

@@ -61,7 +61,7 @@ def test_dream_adapts_crossover():
 
 
 def test_dream_adaptation_threads_across_blocks():
-    # ADVICE round 1 (medium): DreamSampler used to restart adaptation at
+    # DreamSampler used to restart adaptation at
     # every block boundary, so the adapted p_cr was lost after burn-in.
     # Now the full DreamState persists: t accumulates, p_cr adapts across
     # blocks, and freezes (not resets) once t >= n_adapt.

@@ -2,7 +2,7 @@
 
 examples/demo_sysid.py is referenced from the docs; running it in a
 subprocess (CPU-forced) keeps the documented API calls from rotting.
-The benchmark examples are excluded — they target the real TPU.
+The benchmark examples are excluded — they target the GPU.
 """
 import pathlib
 import subprocess
@@ -23,7 +23,7 @@ def test_demo_sysid_runs():
             text=True, timeout=900, cwd=str(_REPO),
         )
     except subprocess.TimeoutExpired as exc:  # cold-cache compiles can
-        import pytest                          # dominate on this 1-core host
+        import pytest                          # dominate on a small host
 
         pytest.fail(
             "demo timed out (cold compile cache?); partial stdout:\n"

@@ -3,7 +3,7 @@
 The main suite runs f64 (x64) to match the reference's tolerances — but
 every f32-only regression of round 1 (power-iteration collapse, saddle
 pinv blow-up, CholeskyQR NaNs) was invisible in f64 and only surfaced on
-TPU. This lane reruns the critical flows in f32 in a subprocess (x64 is a
+the accelerator. This lane reruns the critical flows in f32 in a subprocess (x64 is a
 process-wide switch), so CPU CI catches that class.
 """
 import json

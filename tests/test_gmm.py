@@ -59,7 +59,7 @@ class TestFit:
 
     def test_diag_bic_counts_diag_params(self):
         """A diag fit must be penalized for k*d covariance params, not
-        k*d*(d+1)/2 (ADVICE r4): on identical log-likelihoods the diag
+        k*d*(d+1)/2: on identical log-likelihoods the diag
         BIC/AIC must be strictly smaller by the off-diagonal count."""
         x, _, _ = _three_blobs(n_per=150, seed=6)
         k, d = 3, 2
@@ -80,7 +80,7 @@ class TestFit:
 
     def test_numpy_integer_seed(self):
         """np.int64 seeds must coerce through utils.prng.as_key
-        (ADVICE r4: the old inline check passed them raw to split)."""
+        (an inline check used to pass them raw to split)."""
         x, _, _ = _three_blobs(n_per=60, seed=7)
         fit = gmm_fit(x, 2, key=np.int64(3), n_iter=20)
         assert np.isfinite(float(fit.log_likelihood))

@@ -81,3 +81,40 @@ def test_multi_output_fit(rng):
     y_hat = rbf.predict(x)
     assert y_hat.shape == (30, 2)
     assert_mat_approx_eq(y_hat, y, 1e-5)
+
+
+def _kernel_f64(r, kernel, eps):
+    return {
+        "linear": r,
+        "cubic": r ** 3,
+        "multiquadric": np.sqrt(1.0 + (eps * r) ** 2),
+        "gaussian": np.exp(-((eps * r) ** 2)),
+    }[kernel]
+
+
+@pytest.mark.parametrize(
+    "kernel,n_a,n_b,d",
+    [
+        ("linear", 70, 50, 3),
+        ("multiquadric", 70, 50, 3),
+        ("cubic", 70, 50, 3),
+        ("gaussian", 70, 50, 3),
+        # shapes that are not multiples of any tile or power of two
+        ("multiquadric", 7, 13, 2),
+    ],
+)
+def test_kernel_matrix_f32_matches_float64(rng, kernel, n_a, n_b, d):
+    # the XLA kernel-matrix path in f32 against float64 numpy on the same
+    # (f32-rounded) points: elementwise f32 rounding only
+    xa = rng.standard_normal((n_a, d)).astype(np.float32)
+    xb = rng.standard_normal((n_b, d)).astype(np.float32)
+    got = rbf_kernel_eval(
+        pairwise_dists(jnp.asarray(xa), jnp.asarray(xb)), kernel, 0.7
+    )
+    assert got.dtype == jnp.float32 and got.shape == (n_a, n_b)
+    r = np.sqrt(((xa.astype(np.float64)[:, None, :]
+                  - xb.astype(np.float64)[None, :, :]) ** 2).sum(-1))
+    np.testing.assert_allclose(
+        np.asarray(got, np.float64), _kernel_f64(r, kernel, 0.7),
+        rtol=2e-6, atol=1e-6,
+    )

@@ -274,7 +274,7 @@ def test_sharded_dmdc_matches_single():
     snaps = (np.sin(xg[:, None] + 0.2 * tg[None, :]) * u).astype(np.float32)
     m1 = DMDc(jnp.asarray(snaps), jnp.asarray(u), 8, 20, key=3)
     m2 = DMDc(jnp.asarray(snaps), jnp.asarray(u), 8, 20, key=3, mesh=mesh)
-    # Tighter-than-rollout operator checks (VERDICT r1 item 7). Raw A~ is
+    # Tighter-than-rollout operator checks. Raw A~ is
     # basis-dependent: the fixture is effectively rank ~4, so the sketch's
     # junk directions are arbitrary and rotate under the sharded reduction
     # order. Compare basis-INVARIANT quantities instead:
@@ -538,7 +538,7 @@ def test_sharded_hmc_matches_single():
 
 
 # ---------------------------------------------------------------------------
-# Round-5: ensemble-axis families sharded over the mesh (VERDICT r4 item 3)
+# Ensemble-axis families sharded over the mesh
 # ---------------------------------------------------------------------------
 
 

@@ -69,7 +69,7 @@ class TestUkf:
     def test_pd_breakdown_surfaces_as_nan(self):
         """If the innovation covariance loses positive-definiteness the
         loglik must be NaN, not a silently sign-dropped value
-        (ADVICE r4: slogdet's sign was discarded)."""
+        (slogdet's sign must not be discarded)."""
         a, c_obs, q, _r, ys = _linear_fixture(t_len=5)
         a_j, c_j = jnp.asarray(a), jnp.asarray(c_obs)
         out = ukf_filter(

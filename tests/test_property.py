@@ -229,7 +229,7 @@ def test_cp_random_exact_rank(seed):
 
 
 # ---------------------------------------------------------------------------
-# Round-5 (VERDICT r4 item 6): randomized invariants for the statistical
+# Randomized invariants for the statistical
 # families — enkf, smc, psis, quadrature.
 # ---------------------------------------------------------------------------
 
@@ -297,7 +297,7 @@ def test_smc_evidence_random_gaussian(seed):
     """SMC log-evidence vs the analytic normalizer of a random
     linear-Gaussian model: prior N(0, a^2 I), unnormalized Gaussian
     likelihood exp(-|x-mu|^2 / (2 b^2)). The adaptive ladder differs
-    per seed (random anneal ladders, VERDICT r4 item 6)."""
+    per seed (random anneal ladders)."""
     import jax
 
     from corrla_rs_tpu.ops.smc import smc_sample

@@ -177,7 +177,7 @@ def test_rvine_matches_cvine_on_cvine_data(rng):
 
 @pytest.mark.slow
 def test_rvine_negative_dependence_lower_tail(rng):
-    # VERDICT round-2 gap: negative/opposite-tail dependence used to fall
+    # negative/opposite-tail dependence used to fall
     # back to gaussian/frank; now the rotated family must win in-vine
     n = 2000
     th = v._theta_from_tau("clayton90", -0.55)

@@ -1,6 +1,6 @@
-"""Mesh paths for the remaining tall-axis factorizations (VERDICT r3
-item 5: CP / NMF / robust PCA row-sharding) and the communication-volume
-contract of the sharded RSVD (item 8: a kernel that all-gathered the full
+"""Mesh paths for the remaining tall-axis factorizations (CP / NMF /
+robust PCA row-sharding) and the communication-volume contract of the
+sharded RSVD (a kernel that all-gathered the full
 matrix must FAIL here, not just run slower).
 
 Runs on the faked 8-device CPU backend (tests/conftest.py).
@@ -89,7 +89,7 @@ def test_sharded_robust_pca_matches_single_device(mesh):
 
 
 # ---------------------------------------------------------------------------
-# Communication-volume contract (VERDICT r3 item 8)
+# Communication-volume contract
 # ---------------------------------------------------------------------------
 
 _SHAPE_RE = re.compile(r"(f32|f64|bf16|u32|s32)\[([0-9,]*)\]")
@@ -167,7 +167,7 @@ def test_sharded_pca_cov_path_never_gathers_the_matrix(mesh):
 
 
 def test_sharded_enkf_never_gathers_the_ensemble(mesh):
-    """Member-sharded EnKF contract (VERDICT r4 item 3): collectives
+    """Member-sharded EnKF contract: collectives
     move O(p*(p+n)) Gram blocks and O(n) means — never the (N, n)
     ensemble. A rework that makes GSPMD gather the ensemble jumps the
     largest collective from ~p*n*8 bytes to N*n*8 and fails here."""

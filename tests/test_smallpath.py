@@ -2,8 +2,7 @@
 
 These tests run on the CPU backend where routing is inherently a no-op;
 the decision logic is exercised by faking an accelerator default
-backend. Real-TPU behavior (rpca 10k x 12 latency, DMDc small-fixture
-accuracy) is recorded in BASELINE.md.
+backend.
 """
 import jax
 import jax.numpy as jnp
@@ -34,7 +33,7 @@ def test_threshold_get_set():
 
 
 def test_routes_small_when_accelerator_default(rng, monkeypatch):
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     a = rng.standard_normal((8, 3))
     (out,) = smallpath.maybe_route_small(a)
     assert isinstance(out, jax.Array)
@@ -44,14 +43,14 @@ def test_routes_small_when_accelerator_default(rng, monkeypatch):
 
 
 def test_respects_work_elems_override(rng, monkeypatch):
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     a = rng.standard_normal((4, 3))  # tiny input...
     (out,) = smallpath.maybe_route_small(a, work_elems=1 << 22)
     assert out is a  # ...but the declared work is big -> stay put
 
 
 def test_respects_explicit_commitment(rng, monkeypatch):
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     dev = jax.devices()[1]
     a = jax.device_put(jnp.ones((4, 3)), dev)  # caller pinned placement
     (out,) = smallpath.maybe_route_small(a)
@@ -59,7 +58,7 @@ def test_respects_explicit_commitment(rng, monkeypatch):
 
 
 def test_disabled_via_threshold(rng, monkeypatch):
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     smallpath.set_small_path_threshold(0)
     a = rng.standard_normal((8, 3))
     (out,) = smallpath.maybe_route_small(a)
@@ -67,7 +66,7 @@ def test_disabled_via_threshold(rng, monkeypatch):
 
 
 def test_sampler_routing_by_chains(rng, monkeypatch):
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     small = rng.standard_normal((12, 3))
     (out,) = smallpath.route_sampler_small(small, n_chains=12)
     assert isinstance(out, jax.Array) and out.committed
@@ -85,7 +84,7 @@ def test_env_disable(monkeypatch):
     assert smallpath.small_path_threshold() == 5000
     smallpath._threshold = None
     monkeypatch.delenv("CORRLA_SMALL_PATH")
-    assert smallpath.small_path_threshold() == 1 << 20
+    assert smallpath.small_path_threshold() == 0  # off by default
 
 
 def test_models_still_fit_with_routing_active(rng, monkeypatch):
@@ -95,7 +94,7 @@ def test_models_still_fit_with_routing_active(rng, monkeypatch):
 
     x = rng.standard_normal((200, 6))
     ref = PcaRsvd(x, 3, key=1)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     routed = PcaRsvd(x, 3, key=1)
     np.testing.assert_allclose(
         np.asarray(routed.singular_values),

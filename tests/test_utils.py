@@ -11,7 +11,7 @@ from corrla_rs_tpu.utils.config import (
 )
 from corrla_rs_tpu.utils.log import get_logger
 from corrla_rs_tpu.utils.prng import as_key, split_key
-from corrla_rs_tpu.utils.tracing import device_sync, timed
+from corrla_rs_tpu.utils.tracing import timed
 
 
 def test_as_key_forms():
@@ -38,9 +38,9 @@ def test_timed_and_sync(rng):
     wall, out = timed(lambda: a @ a, n_runs=2)
     assert wall >= 0.0
     assert out.shape == (64, 64)
-    assert isinstance(device_sync(out), float)
-    # host numpy arrays and empties are skipped, not crashed on
-    assert device_sync([np.ones(3), jnp.zeros((0,)), None]) == 0.0
+    # pytrees with host numpy arrays, empties and None time as well
+    wall, out = timed(lambda: [np.ones(3), jnp.zeros((0,)), None, a], n_runs=1)
+    assert wall >= 0.0 and out[3].shape == (64, 64)
 
 
 def test_configs_frozen_defaults():
@@ -56,7 +56,7 @@ def test_configs_frozen_defaults():
 
 
 def test_configs_are_consumed_by_library():
-    # VERDICT round 1: utils/config.py was decorative. The dataclasses are
+    # utils/config.py must not be decorative: the dataclasses are
     # now the single source of the model/sampler defaults...
     from corrla_rs_tpu.models import active_subspaces, dmd, pca, pod
     from corrla_rs_tpu.ops import dream, samplers
